@@ -1,6 +1,6 @@
 """Camera model and projective-geometry helpers.
 
-TPU-first replacement for the reference's cached camera structure
+Batched replacement for the reference's cached camera structure
 `cam_pose_infos` (detect_3d_cuboid/include/detect_3d_cuboid/detect_3d_cuboid.h:59-71,
 filled in box_proposal_detail.cpp:45-56) and the ray/plane utilities in
 detect_3d_cuboid/src/object_3d_util.cpp:841-925.  Everything is batched and
@@ -14,6 +14,7 @@ from typing import NamedTuple
 import jax.numpy as jnp
 
 from cube_slam_wu_tpu.core import rotations as rot
+from cube_slam_wu_tpu.core.precision import einsum, matmul
 
 
 class CameraPose(NamedTuple):
@@ -47,7 +48,7 @@ def make_camera_pose(K: jnp.ndarray, T_wc: jnp.ndarray) -> CameraPose:
     roll, pitch, yaw = rot.rot_to_euler_zyx(R_wc)
     K_inv = jnp.linalg.inv(K)
     # T_cw = [R_cw | -R_cw t]
-    t_cw = -jnp.einsum("...ij,...j->...i", R_cw, t_wc)
+    t_cw = -einsum("...ij,...j->...i", R_cw, t_wc)
     Rt_cw = jnp.concatenate([R_cw, t_cw[..., :, None]], axis=-1)
     return CameraPose(
         K=K,
@@ -55,9 +56,9 @@ def make_camera_pose(K: jnp.ndarray, T_wc: jnp.ndarray) -> CameraPose:
         T_wc=T_wc,
         R_wc=R_wc,
         R_cw=R_cw,
-        KinvR=K @ R_cw,
+        KinvR=matmul(K, R_cw),
         euler=jnp.stack([roll, pitch, yaw], axis=-1),
-        projection=K @ Rt_cw,
+        projection=matmul(K, Rt_cw),
     )
 
 
@@ -75,7 +76,7 @@ def real_to_homo(pts: jnp.ndarray) -> jnp.ndarray:
 def ray_plane_intersect(rays: jnp.ndarray, plane: jnp.ndarray) -> jnp.ndarray:
     """Intersect origin rays (..., 3, n) with plane (..., 4): returns (..., 3, n)
     (object_3d_util.cpp:841-847)."""
-    denom = jnp.einsum("...i,...in->...n", plane[..., :3], rays)
+    denom = einsum("...i,...in->...n", plane[..., :3], rays)
     frac = -plane[..., 3:4] / denom
     return frac[..., None, :] * rays
 
@@ -89,9 +90,9 @@ def plane_hits_3d(
     """Unproject pixels (..., 2, n) onto a camera-frame plane; return world
     points (..., 3, n) (object_3d_util.cpp:853-906)."""
     pix_h = real_to_homo(pixels)
-    rays = K_inv @ pix_h
+    rays = matmul(K_inv, pix_h)
     pts_sensor = ray_plane_intersect(rays, plane_sensor)
-    return homo_to_real(T_wc @ real_to_homo(pts_sensor))
+    return homo_to_real(matmul(T_wc, real_to_homo(pts_sensor)))
 
 
 def wall_plane_equation(gnd_pt1: jnp.ndarray, gnd_pt2: jnp.ndarray) -> jnp.ndarray:
@@ -109,4 +110,4 @@ def ground_plane_sensor_frame(T_wc: jnp.ndarray) -> jnp.ndarray:
     """World ground plane (0,0,1,0) expressed in the sensor frame:
     g_s = T_wc^T g_w (box_proposal_detail.cpp:130-131)."""
     g_w = jnp.asarray([0.0, 0.0, 1.0, 0.0], dtype=T_wc.dtype)
-    return jnp.einsum("...ji,j->...i", T_wc, g_w)
+    return einsum("...ji,j->...i", T_wc, g_w)

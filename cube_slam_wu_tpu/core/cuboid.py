@@ -16,6 +16,7 @@ from typing import NamedTuple
 import jax.numpy as jnp
 
 from cube_slam_wu_tpu.core import rotations as rot
+from cube_slam_wu_tpu.core.precision import matmul
 from cube_slam_wu_tpu.core.se3 import SE3
 
 # Unit-cube corner table, columns are corners 1..8 (g2o_Object.h:169-171).
@@ -114,16 +115,16 @@ class Cuboid(NamedTuple):
         body = jnp.asarray(_CORNERS_BODY, self.scale.dtype)
         scaled = self.scale[..., :, None] * body  # (..., 3, 8)
         R = self.pose.rotation_matrix()
-        return R @ scaled + self.pose.trans[..., :, None]
+        return matmul(R, scaled) + self.pose.trans[..., :, None]
 
     def project_bbox(self, Tcw: SE3, K: jnp.ndarray) -> jnp.ndarray:
         """Project corners with world-to-camera pose Tcw and intrinsics K,
         return [cx, cy, w, h] of the bounding rectangle (g2o_Object.h:181-197)."""
         corners_w = self.corners_3d()  # (..., 3, 8)
         corners_c = (
-            Tcw.rotation_matrix() @ corners_w + Tcw.trans[..., :, None]
+            matmul(Tcw.rotation_matrix(), corners_w) + Tcw.trans[..., :, None]
         )
-        uvw = K @ corners_c
+        uvw = matmul(K, corners_c)
         uv = uvw[..., :2, :] / uvw[..., 2:3, :]
         top_left = jnp.min(uv, axis=-1)
         bottom_right = jnp.max(uv, axis=-1)

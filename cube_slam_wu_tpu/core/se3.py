@@ -20,6 +20,7 @@ from typing import NamedTuple
 import jax.numpy as jnp
 
 from cube_slam_wu_tpu.core import rotations as rot
+from cube_slam_wu_tpu.core.precision import einsum, matmul
 
 _EPS_THETA = 1e-8
 
@@ -106,7 +107,7 @@ class SE3(NamedTuple):
         th = jnp.where(small, jnp.ones_like(theta), theta)
 
         Om = rot.skew(omega)
-        Om2 = Om @ Om
+        Om2 = matmul(Om, Om)
         eye = jnp.broadcast_to(jnp.eye(3, dtype=dtype), Om.shape)
 
         sin_t, cos_t = jnp.sin(th), jnp.cos(th)
@@ -116,7 +117,7 @@ class SE3(NamedTuple):
 
         R = eye + a * Om + b * Om2
         V = eye + b * Om + c * Om2
-        t = jnp.einsum("...ij,...j->...i", V, upsilon)
+        t = einsum("...ij,...j->...i", V, upsilon)
         return SE3(rot.rot_to_quat(R), t)
 
     def log(self) -> jnp.ndarray:
@@ -141,7 +142,7 @@ class SE3(NamedTuple):
         omega = scale[..., None] * dR
 
         Om = rot.skew(omega)
-        Om2 = Om @ Om
+        Om2 = matmul(Om, Om)
         eye = jnp.broadcast_to(jnp.eye(3, dtype=dtype), Om.shape)
         th_safe = jnp.where(near_id, jnp.ones_like(theta), theta)
         coef = jnp.where(
@@ -150,7 +151,7 @@ class SE3(NamedTuple):
             (1.0 - th_safe / (2.0 * jnp.tan(th_safe / 2.0))) / (th_safe * th_safe),
         )[..., None, None]
         V_inv = eye - 0.5 * Om + coef * Om2
-        upsilon = jnp.einsum("...ij,...j->...i", V_inv, self.trans)
+        upsilon = einsum("...ij,...j->...i", V_inv, self.trans)
         return jnp.concatenate([omega, upsilon], axis=-1)
 
     # -- misc ---------------------------------------------------------------

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import jax.numpy as jnp
 
 from cube_slam_wu_tpu.core import rotations as rot
+from cube_slam_wu_tpu.core.precision import einsum, matmul
 
 _EPS = 1e-7
 
@@ -34,7 +35,7 @@ def _sim3_W(omega: jnp.ndarray, sigma: jnp.ndarray) -> jnp.ndarray:
     sg = jnp.where(small_s, 1.0, sigma)
 
     Om = rot.skew(omega)
-    Om2 = Om @ Om
+    Om2 = matmul(Om, Om)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=dtype), Om.shape)
 
     C = jnp.where(small_s, 1.0, (s - 1.0) / sg)
@@ -106,14 +107,14 @@ class Sim3(NamedTuple):
         small_t = theta2 < _EPS * _EPS
         th = jnp.sqrt(jnp.where(small_t, 1.0, theta2))
         Om = rot.skew(omega)
-        Om2 = Om @ Om
+        Om2 = matmul(Om, Om)
         eye = jnp.broadcast_to(jnp.eye(3, dtype=dtype), Om.shape)
         a = jnp.where(small_t, 1.0 - theta2 / 6.0, jnp.sin(th) / th)
         b = jnp.where(small_t, 0.5 - theta2 / 24.0, (1.0 - jnp.cos(th)) / th**2)
         R = eye + a[..., None, None] * Om + b[..., None, None] * Om2
 
         W = _sim3_W(omega, sigma)
-        t = jnp.einsum("...ij,...j->...i", W, upsilon)
+        t = einsum("...ij,...j->...i", W, upsilon)
         return Sim3(rot.rot_to_quat(R), t, jnp.exp(sigma))
 
     def log(self) -> jnp.ndarray:

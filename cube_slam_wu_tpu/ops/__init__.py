@@ -1,1 +1,1 @@
-"""Vectorized image / line / proposal tensor ops (the TPU compute path)."""
+"""Vectorized image / line / proposal tensor ops (the accelerator compute path)."""

@@ -5,7 +5,7 @@ landmarks when building the KITTI/object graphs (object association by
 bbox overlap, object_slam/src/main_obj.cpp detection ingestion; the
 bundled TUM demo hardcodes a single object so the association is trivial
 there).  This module provides the general multi-object version as
-fixed-shape TPU ops:
+fixed-shape device ops:
 
 - `iou_matrix`: pairwise IoU between two padded bbox sets;
 - `greedy_assign`: deterministic greedy matching (repeated global argmax

@@ -1,6 +1,6 @@
 """Batched image ops: grayscale, Sobel, Canny edges, exact distance transform.
 
-TPU-native replacements for the OpenCV calls in the reference proposal engine
+Fixed-shape replacements for the OpenCV calls in the reference proposal engine
 (`cv::Canny(gray(roi), 80, 200)` and `cv::distanceTransform(255-canny,
 CV_DIST_L2, 3)`, detect_3d_cuboid/src/box_proposal_detail.cpp:322-327).
 Differences by design:
@@ -21,6 +21,8 @@ import functools
 import jax
 import jax.numpy as jnp
 
+from cube_slam_wu_tpu.core.precision import tensordot
+
 
 def rgb_to_gray(img: jnp.ndarray) -> jnp.ndarray:
     """(..., H, W, 3) RGB [0,255] -> rounded gray float (..., H, W).
@@ -30,7 +32,7 @@ def rgb_to_gray(img: jnp.ndarray) -> jnp.ndarray:
     round-half-away like OpenCV's fixed-point path.
     """
     w = jnp.asarray([0.299, 0.587, 0.114], dtype=img.dtype)
-    gray = jnp.tensordot(img, w, axes=[[-1], [0]])
+    gray = tensordot(img, w, axes=[[-1], [0]])
     return jnp.floor(gray + 0.5)
 
 
@@ -126,9 +128,7 @@ def canny(
     # the row axis, so each constrained dilation touches 8x less memory and
     # the whole fixpoint runs on (H, W/8) words.  The fixpoint (weak pixels
     # 8-connected to a strong seed) is identical to the unpacked version —
-    # packing changes the arithmetic, not the lattice.  Measured: the
-    # unpacked roll-based loop was ~2 ms of the 8.5 ms proposal grid at VGA
-    # (scratch/micro_r4.log); packed it is a rounding error.
+    # packing changes the arithmetic, not the lattice.
     w_px = weak.shape[-1]
     weak_p = jnp.packbits(weak, axis=-1, bitorder="little")
     strong_p = jnp.packbits(strong, axis=-1, bitorder="little")
@@ -154,7 +154,7 @@ def canny(
     def body(state):
         edges, _, i = state
         # 16 constrained dilations per convergence check: cuts while_loop
-        # round trips 16x (each TPU loop iteration costs fixed launch latency)
+        # iterations 16x (each iteration pays a fixed launch latency)
         grown = edges
         for _ in range(16):
             grown = dilate8(grown) & weak_p
@@ -201,28 +201,18 @@ def _edt_1d_columns(edge: jnp.ndarray) -> jnp.ndarray:
     return d
 
 
-def distance_transform(
-    edge: jnp.ndarray, row_chunk: int = 32, use_pallas: bool | None = None
-) -> jnp.ndarray:
+def distance_transform(edge: jnp.ndarray, row_chunk: int = 32) -> jnp.ndarray:
     """Exact Euclidean distance transform to the nearest True pixel.
 
     Two stages: per-column 1D distances g(x, y), then per-row exact
-    minimisation D(y, x) = min_x' sqrt((x - x')^2 + g(x', y)^2).  On TPU the
-    row stage runs as a VMEM-resident Pallas kernel
-    (ops.pallas_kernels.edt_row_min); elsewhere as a chunked dense reduction.
+    minimisation D(y, x) = min_x' sqrt((x - x')^2 + g(x', y)^2) as a chunked
+    dense reduction (XLA fuses the broadcast-add into the min).
 
     Pixels in images with no edges at all get a large finite value.
     """
     h, w = edge.shape[-2:]
     g = _edt_1d_columns(edge)  # (h, w) distance along columns
     g2 = jnp.minimum(g, 1e6) ** 2  # (h, w)
-
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        from cube_slam_wu_tpu.ops.pallas_kernels import edt_row_min
-
-        return edt_row_min(g2).astype(g2.dtype)
 
     xs = jnp.arange(w, dtype=g2.dtype)
     dx2 = (xs[:, None] - xs[None, :]) ** 2  # (w out, w src)

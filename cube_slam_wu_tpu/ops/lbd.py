@@ -17,8 +17,8 @@ binary_descriptor_matcher.cpp).  The math follows the reference exactly:
   table from the LBD paper, binary_descriptor.cpp:74-107).
 
 Matching replaces MIH hash tables with a dense XOR+popcount Hamming matrix —
-at padded set sizes of a few hundred lines the dense form is faster on TPU
-than any hashing scheme, and exactly reproduces nearest-neighbour matching
+at padded set sizes of a few hundred lines the dense form is one batched
+op with no data-dependent control flow, and exactly reproduces nearest-neighbour matching
 with the reference's dist<25 acceptance (line_lbd_allclass.cpp:352-369).
 """
 
@@ -29,6 +29,8 @@ import math
 
 import jax
 import jax.numpy as jnp
+
+from cube_slam_wu_tpu.core.precision import einsum
 
 NUM_BANDS = 9
 BAND_WIDTH = 7
@@ -68,8 +70,7 @@ _GRAD_SCALE = 2048.0  # bias*2*scale + bias*2 = 4.18M < 2^24: exact in f32
 
 def _pack_gradients(gx, gy):
     """Pack the two INTEGER-VALUED gradient maps into one f32 so each
-    descriptor sample costs ONE gather instead of two (TPU gathers are
-    rate-bound per element).  Exact: Sobel-of-u8 values are ints in
+    descriptor sample costs ONE gather instead of two.  Exact: Sobel-of-u8 values are ints in
     [-1020, 1020], so (gx+1020)*2048 + (gy+1020) <= 4.18M sits inside the
     f32 24-bit mantissa."""
     gxr = jnp.round(gx.astype(jnp.float32))
@@ -113,8 +114,7 @@ def _descriptor_from_samples(packed, xi, yi, w_valid, dLx, dLy):
     dOx, dOy = -dLy, dLx  # clockwise orthogonal
     height = NUM_BANDS * BAND_WIDTH  # 63
 
-    # ONE flat 1-D take per sample (flat form: the 2-D gather lowers to a
-    # ~1.45x slower per-element path on TPU, scratch/gather_bench.log)
+    # ONE flat 1-D take per sample
     W = packed.shape[1]
     flat_idx = yi * W + xi
     v = jnp.take(packed.reshape(-1), flat_idx)
@@ -145,8 +145,8 @@ def _descriptor_from_samples(packed, xi, yi, w_valid, dLx, dLy):
         onehot = (
             target_band_of_row[None, :] == jnp.arange(NUM_BANDS)[:, None]
         ).astype(dtype)  # (9, 63)
-        s1 = jnp.einsum("bh,h,lhc->lbc", onehot, coefs, rows)
-        s2 = jnp.einsum("bh,h,lhc->lbc", onehot, coefs * coefs, rows2)
+        s1 = einsum("bh,h,lhc->lbc", onehot, coefs, rows)
+        s2 = einsum("bh,h,lhc->lbc", onehot, coefs * coefs, rows2)
         return s1, s2
 
     s1a, s2a = accumulate(band_of_row, c_self)
@@ -276,8 +276,7 @@ def reference_gradients(gray_u8):
     matches to +/-1 gray level: OpenCV's 8U Gaussian runs a fixed-point
     (position-dependent, IPP-backed) pipeline whose exact rounding is not
     reproducible from the documented kernel; measured agreement on the
-    cabinet fixture is 54% exact / 46% off-by-one (scratch/
-    lbd_parity_proto.py).  Pass oracle-dumped (dx, dy) to
+    cabinet fixture is 54% exact / 46% off-by-one.  Pass oracle-dumped (dx, dy) to
     `lbd_descriptors(..., gradients=...)` when exact parity is required.
 
     Returns (gx, gy) int32 arrays.
@@ -509,7 +508,7 @@ def knn_match(
     """k-nearest-neighbour binary matching
     (BinaryDescriptorMatcher::knnMatch, binary_descriptor_matcher.cpp:
     216-376 — the MIH hash-table k-NN replaced by one dense XOR+popcount
-    matrix + top_k, the faster form on TPU at padded set sizes).
+    matrix + top_k at padded set sizes).
 
     Returns (idx (Lq, k) train indices best-first, dist (Lq, k) int32,
     valid (Lq, k) — False where fewer than k masked train rows exist or
@@ -595,10 +594,10 @@ def l2_match(
     The reference matches the 32-byte binarized descriptors
     (BinaryDescriptorMatcher, line_lbd_allclass.cpp:352-369); keeping the
     float vectors roughly quadruples the number of frame-to-frame matches at
-    equal geometric consistency on the bundled sequence (scratch/
-    match_quality.py), at the cost of an L2 instead of XOR+popcount — on TPU
-    the (Lq, Lt, D) distance is a single fused matmul-shaped op, so the
-    float path is the recommended tracking matcher.
+    equal geometric consistency on the bundled sequence, at the cost of an
+    L2 instead of XOR+popcount — the (Lq, Lt, D) distance is a single fused
+    matmul-shaped op, so the float path is the recommended tracking
+    matcher.
 
     Optional guided matching for video: with `query_lines`/`train_lines`
     ((L, 4) endpoints) and `max_midpoint_dist`, candidates farther than the

@@ -94,7 +94,7 @@ def merge_break_lines(
     """Merge nearly-collinear, endpoint-adjacent segments, then length
     filtering (object_3d_util.cpp:431-543).
 
-    TPU-first reformulation of the reference's one-merge-per-scan greedy
+    Batched reformulation of the reference's one-merge-per-scan greedy
     loop: each round commits ALL mutual-first-choice candidate pairs
     simultaneously (disjoint by construction), so a chain of k collinear
     stubs coalesces in O(log k) rounds instead of k sequential scans.  The

@@ -1,6 +1,6 @@
 """Vanishing-point cuboid proposal engine as one batched hypothesis grid.
 
-TPU-first re-design of the reference's per-detection proposal loop
+Batched re-design of the reference's per-detection proposal loop
 (detect_3d_cuboid/src/box_proposal_detail.cpp:65-861 and the geometry/scoring
 helpers in object_3d_util.cpp).  The reference iterates
 (camera roll x pitch x object yaw x top-edge sample x configuration) with ~10
@@ -41,6 +41,7 @@ import jax.numpy as jnp
 
 from cube_slam_wu_tpu.core import camera as cam
 from cube_slam_wu_tpu.core import rotations as rotu
+from cube_slam_wu_tpu.core.precision import einsum, matmul
 from cube_slam_wu_tpu.ops import image as image_ops
 from cube_slam_wu_tpu.ops import lines as line_ops
 
@@ -100,11 +101,11 @@ class ProposalConfig:
     # fusion and ranking never read the edge-distance of an invalid
     # hypothesis (fuse_normalized_scores masks with +inf), so gathering the
     # ~99 dist-map samples per hypothesis only for hypotheses that survived
-    # the corner-chain guards is exact — and the per-element gather is the
-    # proposal grid's dominant TPU cost (scratch/stage_ablate.log: 23 ms ->
-    # 1.3 ms without it) while only ~20-26% of hypotheses are valid on the
-    # bundled sequences (scratch/valid_counts.py over the full 58-frame
-    # online run: max 3883 config-1 and 1163 config-2).  The cap is static:
+    # the corner-chain guards is exact — and the per-element gather was
+    # the grid's dominant cost where it was first measured (not yet on the
+    # GPU) — while only ~20-26% of hypotheses are valid on the bundled
+    # sequences (over the full 58-frame online run: max 3883 config-1 and
+    # 1163 config-2).  The cap is static:
     # per config block, the cap best hypotheses — valid first, then by the
     # already-computed (gather-free) VP-alignment angle score — are
     # gathered; if MORE than the cap are valid, the overflow drops the
@@ -115,8 +116,7 @@ class ProposalConfig:
     dist_gather_cap2: int = 1536
     # Compact the ROI's lines to this many slots (valid-first, stable order)
     # before merge_break_lines.  The merge is compute-bound at O(slots^2)
-    # per round (scratch/micro_r4: 2.07 ms at 320 slots vs 0.36 ms at 128 on
-    # TPU) while typically <100 of the padded `max_lines` slots fall inside
+    # per round while typically <100 of the padded `max_lines` slots fall inside
     # the expanded detection ROI.  Exact while n_inside <= cap (stable
     # compaction preserves the relative slot order the merge's
     # lexicographic pairing depends on); a binding cap is counted in
@@ -234,7 +234,7 @@ def vanishing_points_h(KinvR: jnp.ndarray, yaw: jnp.ndarray) -> jnp.ndarray:
         ],
         axis=-2,
     )
-    return jnp.einsum("...ij,...vj->...vi", KinvR, dirs)
+    return einsum("...ij,...vj->...vi", KinvR, dirs)
 
 
 def vanishing_points(KinvR: jnp.ndarray, yaw: jnp.ndarray) -> jnp.ndarray:
@@ -416,8 +416,8 @@ def _edge_dist_score(
     # sample_pt = frac*a + (1-frac)*b  (reference orders from corner2 to 1)
     px = frac[None, :, None] * ax[:, None, :] + (1.0 - frac[None, :, None]) * bx[:, None, :]
     py = frac[None, :, None] * ay[:, None, :] + (1.0 - frac[None, :, None]) * by[:, None, :]
-    # flat 1D `take` instead of a 2D gather: XLA lowers the 2D form to a
-    # slower per-element path on TPU (~1.45x, scratch/gather_bench.log)
+    # flat 1D `take` instead of a 2D gather (their relative cost on the GPU
+    # is not measured yet)
     flat = dist_map.reshape(-1)
     if bilinear:
         x0 = jnp.clip(jnp.floor(px), 0.0, wimg - 1.0)
@@ -429,8 +429,8 @@ def _edge_dist_score(
         yi1 = jnp.minimum(yi + 1, h - 1)
         row = yi * wimg
         row1 = yi1 * wimg
-        # TPU gathers are rate-bound per ELEMENT (~10 ns each, regardless of
-        # width — scratch/gather_bench.log), so halve the element count by
+        # Halve the gathered element count (the gather was rate-bound per
+        # element where this was designed; not yet measured on the GPU) by
         # bit-packing each pixel's horizontal tap pair (D[y,x], D[y,x+1]) as
         # two f16 in one uint32: one take yields both x-taps of a row.
         # f16 rounding of the distance map (<= 0.25 px at the ROI diagonal,
@@ -464,7 +464,7 @@ def _edge_dist_score(
         xi = jnp.clip(jnp.floor(px).astype(jnp.int32), 0, wimg - 1)
         yi = jnp.clip(jnp.floor(py).astype(jnp.int32), 0, h - 1)
         d = jnp.take(flat, yi * wimg + xi)  # (E, 11, H)
-    return jnp.einsum("e,esh->h", w, d)
+    return einsum("e,esh->h", w, d)
 
 
 def _edge_angle_score(ang_a, ang_b, has, cx, cy, config_id: int):
@@ -638,7 +638,7 @@ def _similarity_corners_3d(pos, rotY, scale):
         ],
         dtype=pos.dtype,
     )
-    return R @ (scale[..., :, None] * body) + pos[..., :, None]
+    return matmul(R, scale[..., :, None] * body) + pos[..., :, None]
 
 
 # ---------------------------------------------------------------------------
@@ -836,18 +836,9 @@ def hypothesis_grid(
 
         blocks = []
         for config_id in config_ids:
-            # NOTE on fusion: a hand-fused Pallas kernel for this block was
-            # built and benchmarked in round 2 at 0.99x (scratch/
-            # fused_bench.log) and removed: the TPU has no vectorized
-            # arbitrary gather for Pallas to exploit (VMEM residency does
-            # not change the ~7 ns/element rate, scratch/gather_bench.log:
-            # an 8x128 map gathers no faster than 480x640), and XLA already
-            # fuses the surrounding elementwise work.  Round-4 attribution
-            # (scratch/stage_ablate_r4.py + micro_r4.py, jit caches cleared
-            # per ablation): parity grid = chamfer gathers ~4.1 ms +
-            # Canny/EDT map ~1.0 ms + ROI merge ~0.4 ms (after merge_cap) +
-            # ~0.2 ms of corner/VP/fusion arithmetic.  bench.py prints the
-            # gather-roofline model next to the measured time.
+            # XLA fuses the elementwise work around the chamfer gathers;
+            # where the time of this block goes on the GPU is not
+            # measured yet (PERF.md, open questions).
             cx, cy, vp1_pos, valid = _corner_chain(
                 vp, c1x, c1y, geom, config_id, cfg.shorted_edge_thre
             )
@@ -868,8 +859,8 @@ def hypothesis_grid(
                 # valid-first, ascending angle error: while n_valid <= cap
                 # this gathers exactly the valid set; a binding cap sheds
                 # the least-promising hypotheses first.  (A cumsum+scatter
-                # partition was tried and measured 0.2 ms SLOWER on TPU —
-                # the 6k-element scatter costs more than the sort.)
+                # partition is the alternative; on the GPU the two are not
+                # compared yet.)
                 amax = jnp.max(jnp.abs(angle)) + 1.0
                 order = jnp.argsort(
                     jnp.where(valid, angle, amax), stable=True

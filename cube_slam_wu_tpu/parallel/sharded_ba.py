@@ -1,14 +1,14 @@
-"""Distributed bundle adjustment: factor-sharded Hessian reduction over ICI.
+"""Distributed bundle adjustment: factor-sharded Hessian reduction.
 
 The reference has no distributed compute at all (SURVEY.md section 2.9); this
-is the TPU-native scale-out design for the back-end:
+is the scale-out design for the back-end:
 
 - the (small) state vector — camera poses + cuboid — is replicated,
 - the FACTORS (odometry edges, camera-object edges) are sharded across the
   mesh's `kf` (keyframe) axis with `shard_map`,
 - each device linearizes only its local block of factors and forms partial
   normal equations H_k = J_k^T J_k, g_k = J_k^T r_k,
-- `psum` over ICI reduces the blocks; the damped solve is replicated
+- `psum` reduces the blocks; the damped solve is replicated
   (deterministic, so all devices stay in lockstep),
 - the LM accept/reject loop runs on the reduced scalars.
 
@@ -28,6 +28,7 @@ from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
 
 from cube_slam_wu_tpu.core.cuboid import Cuboid
+from cube_slam_wu_tpu.core.precision import matmul
 from cube_slam_wu_tpu.core.se3 import SE3
 from cube_slam_wu_tpu.slam.ba import BAResult, _apply_increments
 from cube_slam_wu_tpu.slam.graph import CameraObjectGraph, graph_residuals
@@ -81,8 +82,8 @@ def make_sharded_optimize(
             J = jax.jacfwd(
                 lambda dx: _local_residual_vector(graph_rep, dx, fix_first, axis)
             )(zero)
-            H = jax.lax.psum(J.T @ J, axis)
-            g = jax.lax.psum(J.T @ r, axis)
+            H = jax.lax.psum(matmul(J.T, J), axis)
+            g = jax.lax.psum(matmul(J.T, r), axis)
             chi2 = jax.lax.psum(jnp.sum(r * r), axis)
             return H, g, chi2
 
@@ -119,7 +120,7 @@ def make_sharded_optimize(
             cam_new, cube_new = _apply_increments(g, dx, fix_first)
             g_new = g._replace(cam_Tcw=cam_new, cube=cube_new)
             chi2_new = chi2_of(g_new)
-            denom = jnp.maximum(jnp.abs(dx @ (lam * dx - grad)), 1e-30)
+            denom = jnp.maximum(jnp.abs(matmul(dx, lam * dx - grad)), 1e-30)
             rho = (chi2_cur - chi2_new) / denom
             accept = (rho > 0) & jnp.isfinite(chi2_new)
             lam_next = jnp.where(

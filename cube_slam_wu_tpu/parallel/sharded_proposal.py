@@ -1,15 +1,14 @@
 """Hypothesis-grid tensor parallelism for the cuboid proposal engine.
 
 The reference's proposal loop is single-threaded C++ (SURVEY.md section 2.9:
-no TP of any kind); the TPU-native scale-out for "per-frame work exceeds one
-chip" is to shard the (roll, pitch) sample axis of the hypothesis grid across
+no TP of any kind); the scale-out for "per-frame work exceeds one
+device" is to shard the (roll, pitch) sample axis of the hypothesis grid across
 the mesh:
 
 - the image, lines, calibration and bbox are replicated (small),
 - each device runs `ops.proposal.hypothesis_grid` on its roll/pitch slice —
   the corner chains, chamfer dist-map gathers, VP-angle scores and 3D
-  lifting, i.e. all of the per-hypothesis work that dominates the profile
-  (scratch/stage_ablate.log: the dist gathers alone are ~95% of runtime),
+  lifting, i.e. all of the per-hypothesis work,
 - the per-hypothesis score/validity/state arrays are reassembled along the
   hypothesis axis (RP-major, so contiguous roll/pitch chunks concatenate
   exactly) — this is the only communication, a few (H,) vectors,
@@ -132,10 +131,6 @@ def detect_cuboid_sharded(
         mesh=mesh,
         in_specs=(P(axis_name), P(axis_name), P(axis_name), P()),
         out_specs=out_specs,
-        # the grid block calls the Pallas EDT kernel, whose out_shape has no
-        # varying-mesh-axes annotation; vma checking rejects it although the
-        # block is purely roll/pitch-sharded (no cross-device collectives)
-        check_vma=False,
     )(roll_pad, pitch_pad, rp_valid, rep)
 
     nC = int(cfg.consider_config_1) + int(cfg.consider_config_2)

@@ -8,7 +8,7 @@ JAX LM solver:
 - Jacobians come from forward-mode autodiff of the residuals with respect to
   tangent-space increments evaluated at zero (g2o numerically differentiates
   the same local parameterisation, base_binary_edge.h);
-- the normal equations are dense and solved by Cholesky on the MXU — the
+- the normal equations are dense and solved by one Cholesky — the
   problem size (F*6+9 for F frames) is tiny per chip, and the multi-chip
   path (parallel/sharded_ba.py) reduces per-block Hessians with psum;
 - the damping schedule mirrors g2o's Levenberg implementation
@@ -29,6 +29,7 @@ import jax
 import jax.numpy as jnp
 
 from cube_slam_wu_tpu.core.cuboid import Cuboid
+from cube_slam_wu_tpu.core.precision import matmul
 from cube_slam_wu_tpu.core.se3 import SE3
 from cube_slam_wu_tpu.slam.graph import CameraObjectGraph, graph_residuals
 
@@ -144,8 +145,8 @@ def optimize(
         J = jax.jacfwd(
             lambda dx: _residual_vector(g, dx, fix_first, robust_delta, prior)
         )(zero)
-        H = J.T @ J
-        grad = J.T @ r0
+        H = matmul(J.T, J)
+        grad = matmul(J.T, r0)
         chi2 = jnp.sum(r0 * r0)
         return H, grad, chi2
 
@@ -175,15 +176,15 @@ def optimize(
             g, Delta, chi2 = state
             H, grad, chi2_cur = linearize(g)
             h_gn = solve_reg(H, grad, 1e-10)
-            gg = grad @ grad
-            gBg = grad @ (H @ grad)
+            gg = matmul(grad, grad)
+            gBg = matmul(grad, matmul(H, grad))
             alpha = gg / jnp.maximum(gBg, 1e-30)
             h_sd = -alpha * grad
             n_gn = jnp.linalg.norm(h_gn)
             n_sd = jnp.linalg.norm(h_sd)
             d = h_gn - h_sd
-            c = h_sd @ d
-            dd = jnp.maximum(d @ d, 1e-30)
+            c = matmul(h_sd, d)
+            dd = jnp.maximum(matmul(d, d), 1e-30)
             disc = jnp.sqrt(
                 jnp.maximum(c * c + dd * (Delta**2 - n_sd**2), 0.0)
             )
@@ -205,7 +206,7 @@ def optimize(
             cam_new, cube_new = _apply_increments(g, h, fix_first)
             g_new = g._replace(cam_Tcw=cam_new, cube=cube_new)
             chi2_new = chi2_of(g_new)
-            pred = -(grad @ h + 0.5 * h @ (H @ h))
+            pred = -(matmul(grad, h) + 0.5 * matmul(h, matmul(H, h)))
             rho = (chi2_cur - chi2_new) / jnp.maximum(pred, 1e-30)
             accept = (rho > 0) & jnp.isfinite(chi2_new)
             h_norm = jnp.linalg.norm(h)
@@ -243,7 +244,7 @@ def optimize(
         chi2_new = chi2_of(g_new)
 
         # gain ratio rho = (F0 - F1) / (0.5 * dx^T (lam*dx - grad))
-        denom = jnp.maximum(jnp.abs(dx @ (lam * dx - grad)), 1e-30)
+        denom = jnp.maximum(jnp.abs(matmul(dx, lam * dx - grad)), 1e-30)
         rho = (chi2_cur - chi2_new) / denom
         accept = (rho > 0) & jnp.isfinite(chi2_new)
 
@@ -309,7 +310,7 @@ def marginal_covariance(
     J = jax.jacfwd(lambda dx: _residual_vector(graph, dx, fix_first, robust_delta))(
         zero
     )
-    H = J.T @ J
+    H = matmul(J.T, J)
 
     cam_active = graph.frame_mask
     if fix_first:

@@ -12,7 +12,7 @@ types_sba.{h,cpp}) and the Schur-complement block solver
   forward-mode autodiff of the single-projection residual (exact, replaces
   g2o's numeric differentiation),
 - the normal equations are reduced over points with the classic Schur
-  complement, assembled as einsums that map straight onto the MXU:
+  complement, assembled as batched einsums:
       H_red = H_cc - sum_p W_p Hpp_p^-1 W_p^T,
   then a dense Cholesky solve for cameras and batched 3x3 back-substitution
   for points,
@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 
 from cube_slam_wu_tpu.core.cuboid import Cuboid
+from cube_slam_wu_tpu.core.precision import einsum, matmul
 from cube_slam_wu_tpu.core.se3 import SE3
 from cube_slam_wu_tpu.slam.ba import BAResult, _apply_increments, _residual_vector
 from cube_slam_wu_tpu.slam.graph import CameraObjectGraph
@@ -117,7 +118,7 @@ def triangulate_points(
     F = obs_uv.shape[0]
     R = cam_Tcw.rotation_matrix()  # (F, 3, 3)
     t = cam_Tcw.trans  # (F, 3)
-    P = K @ jnp.concatenate([R, t[..., None]], axis=-1)  # (F, 3, 4)
+    P = matmul(K, jnp.concatenate([R, t[..., None]], axis=-1))  # (F, 3, 4)
 
     u = obs_uv[..., 0]
     v = obs_uv[..., 1]
@@ -131,7 +132,7 @@ def triangulate_points(
     )
     rows = jnp.where(obs_mask[..., None, None], rows, 0.0)
     A = rows.transpose(1, 0, 2, 3).reshape(-1, F * 2, 4)  # (P_pts, 2F, 4)
-    N = jnp.einsum("pij,pik->pjk", A, A)  # (P_pts, 4, 4)
+    N = einsum("pij,pik->pjk", A, A)  # (P_pts, 4, 4)
     _, vecs = jnp.linalg.eigh(N)
     X_h = vecs[..., 0]  # smallest eigenvector
     w = X_h[..., 3]
@@ -139,7 +140,7 @@ def triangulate_points(
     X = X_h[..., :3] / w_safe[..., None]
 
     # positive depth in all observing frames
-    pc_z = jnp.einsum("fj,pj->fp", R[:, 2, :], X) + t[:, 2][:, None]
+    pc_z = einsum("fj,pj->fp", R[:, 2, :], X) + t[:, 2][:, None]
     depth_ok = jnp.all(jnp.where(obs_mask, pc_z > 0.1, True), axis=0)
     n_obs = jnp.sum(obs_mask, axis=0)
     ok = (n_obs >= 2) & depth_ok & jnp.all(jnp.isfinite(X), axis=-1)
@@ -243,8 +244,8 @@ def optimize(
         J_g = jax.jacfwd(
             lambda dx: _residual_vector(g, dx, fix_first, robust_delta, prior)
         )(zero_c)
-        H_cc = J_g.T @ J_g
-        g_c = J_g.T @ r_g
+        H_cc = matmul(J_g.T, J_g)
+        g_c = matmul(J_g.T, r_g)
         chi2 = jnp.sum(r_g * r_g)
 
         # --- point part -----------------------------------------------------
@@ -254,17 +255,17 @@ def optimize(
         chi2 = chi2 + jnp.sum(r * r)
 
         # camera-block contributions (block-diagonal over frames)
-        H_cc_pts = jnp.einsum("fpki,fpkj->fij", A, A)  # (F, 6, 6)
+        H_cc_pts = einsum("fpki,fpkj->fij", A, A)  # (F, 6, 6)
         idx = jnp.arange(F * 6).reshape(F, 6)
         H_cc = H_cc.at[idx[:, :, None], idx[:, None, :]].add(H_cc_pts)
         g_c = g_c.at[idx.reshape(-1)].add(
-            jnp.einsum("fpki,fpk->fi", A, r).reshape(-1)
+            einsum("fpki,fpk->fi", A, r).reshape(-1)
         )
 
         # point blocks
-        H_pp = jnp.einsum("fpki,fpkj->pij", B, B) + 1e-12 * eye9  # (P, 3, 3)
-        g_p = jnp.einsum("fpki,fpk->pi", B, r)  # (P, 3)
-        W = jnp.einsum("fpki,fpkj->pfij", A, B)  # (P, F, 6, 3)
+        H_pp = einsum("fpki,fpkj->pij", B, B) + 1e-12 * eye9  # (P, 3, 3)
+        g_p = einsum("fpki,fpk->pi", B, r)  # (P, 3)
+        W = einsum("fpki,fpkj->pfij", A, B)  # (P, F, 6, 3)
         return H_cc, g_c, H_pp, g_p, W, chi2
 
     def chi2_of(g: CameraObjectGraph, points: jnp.ndarray):
@@ -279,17 +280,17 @@ def optimize(
         H_pp_d = H_pp + lam * eye9[None]
         Hpp_inv = jnp.linalg.inv(H_pp_d)  # (P, 3, 3) batched
         # Schur: H_red = H_cc - sum_p W_p Hpp^-1 W_p^T over the camera rows
-        WHi = jnp.einsum("pfij,pjk->pfik", W, Hpp_inv)  # (P, F, 6, 3)
-        red = jnp.einsum("pfik,pgjk->figj", WHi, W).reshape(F * 6, F * 6)
+        WHi = einsum("pfij,pjk->pfik", W, Hpp_inv)  # (P, F, 6, 3)
+        red = einsum("pfik,pgjk->figj", WHi, W).reshape(F * 6, F * 6)
         H_red = H_cc_d.at[: F * 6, : F * 6].add(-red)
         g_red = g_c.at[: F * 6].add(
-            -jnp.einsum("pfik,pk->fi", WHi, g_p).reshape(-1)
+            -einsum("pfik,pk->fi", WHi, g_p).reshape(-1)
         )
         dx_c = -jnp.linalg.solve(H_red, g_red)
         # back-substitute points: dx_p = -Hpp^-1 (g_p + W^T dx_c)
         dxc_cam = dx_c[: F * 6].reshape(F, 6)
-        Wt_dx = jnp.einsum("pfij,fi->pj", W, dxc_cam)
-        dx_p = -jnp.einsum("pij,pj->pi", Hpp_inv, g_p + Wt_dx)
+        Wt_dx = einsum("pfij,fi->pj", W, dxc_cam)
+        dx_p = -einsum("pij,pj->pi", Hpp_inv, g_p + Wt_dx)
         return dx_c, dx_p
 
     def apply(g: CameraObjectGraph, points, dx_c, dx_p):
@@ -307,7 +308,7 @@ def optimize(
         dx_c, dx_p = solve(H_cc, g_c, H_pp, g_p, W, lam)
         g_new, pts_new = apply(g, points, dx_c, dx_p)
         chi2_new = chi2_of(g_new, pts_new)
-        pred = dx_c @ (lam * dx_c - g_c) + jnp.sum(dx_p * (lam * dx_p - g_p))
+        pred = matmul(dx_c, lam * dx_c - g_c) + jnp.sum(dx_p * (lam * dx_p - g_p))
         rho = (chi2_cur - chi2_new) / jnp.maximum(jnp.abs(pred), 1e-30)
         accept = (rho > 0) & jnp.isfinite(chi2_new)
         lam_next = jnp.where(

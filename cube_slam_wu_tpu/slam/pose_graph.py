@@ -4,11 +4,11 @@ Covers the reference's bundled g2o seven-DoF types
 (object_slam/Thirdparty/g2o/g2o/types/types_seven_dof_expmap.{h,cpp}:
 VertexSim3Expmap + EdgeSim3), the machinery ORB-SLAM-style monocular
 systems use to correct accumulated scale drift at loop closure — shipped
-by the reference but unused by its driver.  TPU-native design: the whole
+by the reference but unused by its driver.  Design: the whole
 graph is fixed-shape (padded pose/edge arrays + masks), residuals are
 batched over edges, Jacobians come from forward-mode autodiff of the
-tangent increments at zero, and the dense damped normal equations solve on
-the MXU inside one jitted lax.scan (same LM schedule as slam/ba.py).
+tangent increments at zero, and the dense damped normal equations solve
+inside one jitted lax.scan (same LM schedule as slam/ba.py).
 
 Conventions (matching the g2o types):
 - vertex estimate S_iw : world -> frame i similarity (VertexSim3Expmap);
@@ -28,6 +28,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from cube_slam_wu_tpu.core.precision import matmul
 from cube_slam_wu_tpu.core.se3 import SE3
 from cube_slam_wu_tpu.core.sim3 import Sim3
 
@@ -130,7 +131,7 @@ def optimize(
     Damping: where g2o retries an iteration serially with escalating lambda
     (optimization_algorithm_levenberg.cpp, maxTrialsAfterFailure), here each
     iteration solves a small BATCH of candidate dampings lam * [0.1, 1, 10,
-    100] at once (one vmapped Cholesky on the MXU — the system is tiny) and
+    100] at once (one vmapped Cholesky — the system is tiny) and
     keeps the best accepted step.  Same fixed-shape cost per iteration, no
     wasted outer iterations on rejected trials.
 
@@ -149,7 +150,7 @@ def optimize(
         zero = jnp.zeros((n,), dtype)
         r0 = _residual_vector(g, zero, fix_first)
         J = jax.jacfwd(lambda dx: _residual_vector(g, dx, fix_first))(zero)
-        return J.T @ J, J.T @ r0, jnp.sum(r0 * r0)
+        return matmul(J.T, J), matmul(J.T, r0), jnp.sum(r0 * r0)
 
     H0, _, chi2_0 = linearize(graph)
     lam0 = 1e-5 * jnp.max(jnp.abs(jnp.diag(H0)))

@@ -7,7 +7,7 @@ estimate are initialised by walking min-cost paths from the fixed vertices
 and composing each edge's measurement along the way.
 
 The g2o implementation is a sequential Dijkstra with a priority queue over a
-pointer graph.  The TPU-native re-design is a fixed-shape *parallel
+pointer graph.  The re-design here is a fixed-shape *parallel
 Bellman-Ford*: every relaxation round updates ALL vertices at once with
 masked min-reductions over the edge tables, so the whole propagation is one
 `lax.fori_loop` of dense tensor ops (no queue, no data-dependent shapes).

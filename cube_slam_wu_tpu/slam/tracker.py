@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from cube_slam_wu_tpu.core.cuboid import Cuboid
+from cube_slam_wu_tpu.core.precision import matmul
 from cube_slam_wu_tpu.core.se3 import SE3
 from cube_slam_wu_tpu.slam import ba
 from cube_slam_wu_tpu.slam.graph import CameraObjectGraph
@@ -401,9 +402,10 @@ def make_windowed_point_step(
         )[0]  # (P, 2)
         Twc_last = Tcw_last.inverse()
         Kinv = jnp.linalg.inv(K)
-        ray_c = jnp.concatenate(
-            [uv_last, jnp.ones_like(uv_last[:, :1])], axis=-1
-        ) @ Kinv.T  # (P, 3) camera-frame directions
+        ray_c = matmul(
+            jnp.concatenate([uv_last, jnp.ones_like(uv_last[:, :1])], axis=-1),
+            Kinv.T,
+        )  # (P, 3) camera-frame directions
         from cube_slam_wu_tpu.core import rotations as _rotu
 
         d_w = _rotu.quat_rotate(Twc_last.quat, ray_c)

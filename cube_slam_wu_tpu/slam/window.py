@@ -3,8 +3,8 @@
 The reference re-optimises the ENTIRE graph every frame
 (object_slam/src/main_obj.cpp:802-803); its sparse block solver
 (Thirdparty/g2o/g2o/core/block_solver.h) tolerates growing graphs, but the
-cost is still O(frames) per frame and unusable at KITTI length.  The
-TPU-native design instead runs a fixed-lag smoother:
+cost is still O(frames) per frame and unusable at KITTI length.  This
+design instead runs a fixed-lag smoother:
 
 - only the most recent W frames are free variables (the oldest in-window
   pose is the gauge anchor, held fixed — it carries the frozen past);
@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from cube_slam_wu_tpu.core.cuboid import Cuboid
+from cube_slam_wu_tpu.core.precision import einsum
 from cube_slam_wu_tpu.core.se3 import SE3
 from cube_slam_wu_tpu.slam.graph import CameraObjectGraph
 
@@ -81,7 +82,7 @@ class CubePrior(NamedTuple):
 def prior_residuals(prior: CubePrior, cube: Cuboid) -> jnp.ndarray:
     """(O, 9) residual rows of the prior at candidate estimates `cube`."""
     d = cube.log_error(prior.lin)  # (O, 9): cube = lin (+) d
-    r = jnp.einsum("oij,oj->oi", prior.S, d) + prior.c_vec
+    r = einsum("oij,oj->oi", prior.S, d) + prior.c_vec
     return jnp.where(prior.valid[:, None], r, 0.0)
 
 
@@ -148,8 +149,8 @@ def absorb_frame(
     J = J * (gate * shrink)[:, None, None]
     r0 = r0 * (gate * shrink)[:, None]
 
-    H = prior.H + jnp.einsum("oki,okj->oij", J, J)
-    b = prior.b + jnp.einsum("oki,ok->oi", J, r0)
+    H = prior.H + einsum("oki,okj->oij", J, J)
+    b = prior.b + einsum("oki,ok->oi", J, r0)
     valid = prior.valid | (gate > 0)
 
     eye = jnp.eye(9, dtype=dtype)

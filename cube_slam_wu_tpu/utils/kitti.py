@@ -62,7 +62,11 @@ def load_sequence(seq_dir, poses_path=None) -> KittiSequence:
     seq_dir = pathlib.Path(seq_dir)
     K = parse_calib(seq_dir / "calib.txt")
     img_dir = seq_dir / "image_0"
-    image_paths = sorted(img_dir.glob("*.png")) if img_dir.exists() else []
+    image_paths = (
+        sorted([*img_dir.glob("*.png"), *img_dir.glob("*.pgm")])
+        if img_dir.exists()
+        else []
+    )
     times_file = seq_dir / "times.txt"
     if times_file.exists():
         timestamps = np.loadtxt(times_file)

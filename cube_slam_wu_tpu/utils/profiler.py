@@ -3,7 +3,7 @@
 Replaces the reference's `ca::Profiler` (dependency/tictoc_profiler/
 include/tictoc_profiler/profiler.hpp:54-84): named tictoc sections into a
 global registry with aggregated stats, plus helpers for device-accurate
-timing (block on small fetches — see bench.py's relay note) and XLA traces.
+timing (block on small fetches) and XLA traces.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ single-object.  This module renders ground-truth sequences of flat-shaded
 cuboids on a ground plane — enough structure for the full online pipeline
 (Canny/line detection -> VP-based proposals -> association -> BA) to run
 end-to-end with known ground truth, at any length, and writes them in the
-KITTI odometry layout (image_0/NNNNNN.png, calib.txt, times.txt, poses.txt
+KITTI odometry layout (image_0/NNNNNN.pgm, calib.txt, times.txt, poses.txt
 + per-frame YOLO-style detection txts, the reference's
 filter_2d_obj_txts contract, main_obj.cpp:616-620).
 
@@ -252,15 +252,22 @@ def make_sequence(
     seed: int = 0,
     objects: list | None = None,
     ground_texture: float = 0.0,
+    K: np.ndarray | None = None,
 ) -> SynthSequence:
     """Generate a full synthetic sequence: objects scattered ahead of the
     trajectory on both road sides (or an explicit `objects` list), camera
-    driving forward."""
+    driving forward.  `K` defaults to a 0.75·W focal length; pass the
+    intrinsics the consuming driver assumes (e.g. the TUM fr3 camera of
+    slam.online.TUM_FR3_K) so that ATE against the rendered truth means
+    something."""
     rng = np.random.default_rng(seed)
     H, W = size
-    K = np.array(
-        [[0.75 * W, 0, W / 2.0], [0, 0.75 * W, H / 2.0 - 0.05 * H], [0, 0, 1.0]]
-    )
+    if K is None:
+        K = np.array(
+            [[0.75 * W, 0, W / 2.0], [0, 0.75 * W, H / 2.0 - 0.05 * H],
+             [0, 0, 1.0]]
+        )
+    K = np.asarray(K, np.float64)
     total_dist = speed * dt * n_frames
     if objects is not None:
         T_wc = np.stack(
@@ -308,9 +315,9 @@ def make_sequence(
 
 def write_kitti_sequence(seq: SynthSequence, out_dir, detections_subdir="detections"):
     """Write the sequence in KITTI odometry layout (consumable by
-    utils.kitti.load_sequence + the kitti CLI driver).  Returns
-    (seq_dir, detections_dir, poses_path)."""
-    from PIL import Image
+    utils.kitti.load_sequence + the kitti CLI driver; images as PGM).
+    Returns (seq_dir, detections_dir, poses_path)."""
+    from cube_slam_wu_tpu.utils.io import write_pnm
 
     out = pathlib.Path(out_dir)
     img_dir = out / "image_0"
@@ -339,38 +346,59 @@ def write_kitti_sequence(seq: SynthSequence, out_dir, detections_subdir="detecti
     np.savetxt(poses_path, np.asarray(rows), fmt="%.9e")
 
     for i, (img, det) in enumerate(zip(seq.images, seq.detections)):
-        Image.fromarray(img).save(img_dir / f"{i:06d}.png")
+        write_pnm(img_dir / f"{i:06d}.pgm", img)
         np.savetxt(det_dir / f"{i:06d}.txt", det, fmt="%.3f")
     return out, det_dir, poses_path
 
 
 def write_tum_sequence(seq: SynthSequence, out_dir):
     """Write the sequence in the reference's object_slam/data layout
-    (raw_imgs/%04d_rgb_raw.jpg, filter_2d_obj_txts/%04d_yolo2_0.15.txt
+    (raw_imgs/%04d_rgb_raw.pgm, filter_2d_obj_txts/%04d_yolo2_0.15.txt
     rows [x y w h conf], truth_cam_poses.txt TUM rows) — consumable by
     pipeline.run_online_slam and online.run_online_slam_fused.  Returns
     the base dir."""
     import jax.numpy as jnp
-    from PIL import Image
 
     from cube_slam_wu_tpu.core.se3 import SE3
+    from cube_slam_wu_tpu.utils.io import write_pnm
 
     out = pathlib.Path(out_dir)
     (out / "raw_imgs").mkdir(parents=True, exist_ok=True)
     (out / "filter_2d_obj_txts").mkdir(parents=True, exist_ok=True)
     rows = []
     for i, T in enumerate(seq.T_wc):
-        xyzq = np.asarray(SE3.from_matrix(jnp.asarray(T, jnp.float64)).to_xyzq())
+        xyzq = np.asarray(SE3.from_matrix(jnp.asarray(T)).to_xyzq())
         rows.append([seq.timestamps[i], *xyzq])
     np.savetxt(out / "truth_cam_poses.txt", np.asarray(rows), fmt="%.9f")
     for i, (img, det) in enumerate(zip(seq.images, seq.detections)):
-        Image.fromarray(img).save(out / "raw_imgs" / f"{i:04d}_rgb_raw.jpg")
+        write_pnm(out / "raw_imgs" / f"{i:04d}_rgb_raw.pgm", img)
         np.savetxt(
             out / "filter_2d_obj_txts" / f"{i:04d}_yolo2_0.15.txt",
             det,
             fmt="%.3f",
         )
     return out
+
+
+def fr3_one_object_scene(out_dir, n_frames: int = 58, size=(480, 640), seed=0):
+    """Render the one-object TUM fr3 scene and write it in the TUM layout.
+
+    One box-sized object 7 m ahead, slightly right; the camera (1.65 m up,
+    level) drives towards it at 0.3 m/s, keeping it fully in view.  Rendered
+    with the fr3 intrinsics the fused driver assumes (slam.online
+    .TUM_FR3_K); 58 frames is the length of the reference's fr3 sequence.
+    Returns (base dir, SynthSequence)."""
+    from cube_slam_wu_tpu.slam.online import TUM_FR3_K
+
+    obj = SynthObject(
+        pos=np.array([0.8, 7.0, 0.45]), yaw=0.6,
+        scale=np.array([0.7, 0.5, 0.45]),
+    )
+    seq = make_sequence(
+        n_frames=n_frames, size=size, speed=0.3, noise_px=0.5, seed=seed,
+        objects=[obj], K=TUM_FR3_K,
+    )
+    return write_tum_sequence(seq, pathlib.Path(out_dir) / "tum"), seq
 
 
 def proposal_demo_inputs(dtype, img_hw=(192, 256), n_lines=16):

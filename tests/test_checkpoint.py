@@ -51,7 +51,7 @@ def test_frontend_checkpoint_resume(tmp_path):
                               speed=0.35, noise_px=0.5)
     out, det_dir, _ = synth.write_kitti_sequence(seq, tmp_path / "seq")
     specs = [
-        (out / "image_0" / f"{i:06d}.png", det_dir / f"{i:06d}.txt")
+        (out / "image_0" / f"{i:06d}.pgm", det_dir / f"{i:06d}.txt")
         for i in range(8)
     ]
     T0 = jnp.asarray(seq.T_wc[0])
@@ -104,7 +104,7 @@ def test_frontend_checkpoint_preserves_cap_counters(tmp_path):
                               speed=0.35, noise_px=0.5)
     out, det_dir, _ = synth.write_kitti_sequence(seq, tmp_path / "seq")
     specs = [
-        (out / "image_0" / f"{i:06d}.png", det_dir / f"{i:06d}.txt")
+        (out / "image_0" / f"{i:06d}.pgm", det_dir / f"{i:06d}.txt")
         for i in range(4)
     ]
     T0 = jnp.asarray(seq.T_wc[0])

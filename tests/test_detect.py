@@ -236,3 +236,40 @@ def test_short_band_recovery_pass(reference_root):
     assert np.array_equal(
         np.asarray(l1)[np.asarray(m1)], np.asarray(lines)[:n1]
     )
+
+
+def _blur_fixed_numpy(img):
+    """Integer reference of gaussian_blur5_fixed (replicate border)."""
+    from cube_slam_wu_tpu.ops.detect import _BLUR_BITS, _BLUR_TAPS
+
+    a = np.clip(np.round(img), 0, 255).astype(np.int64)
+    for axis in (0, 1):
+        n = a.shape[axis]
+        a = sum(
+            k * np.take(a, np.clip(np.arange(n) + off, 0, n - 1), axis=axis)
+            for off, k in zip(range(-2, 3), _BLUR_TAPS)
+        )
+    return a / float(1 << 2 * _BLUR_BITS)
+
+
+@pytest.mark.parametrize("shape", [(7, 5), (48, 64), (480, 640)])
+def test_fixed_blur_is_exact(shape):
+    """The detector's blur is integer arithmetic: it equals the int64
+    reference exactly (so no backend's summation order can change it) and
+    stays within 0.5 gray levels of the float Gaussian it stands for."""
+    from cube_slam_wu_tpu.ops.detect import gaussian_blur5, gaussian_blur5_fixed
+
+    img = np.random.default_rng(0).integers(0, 256, shape).astype(np.float32)
+    ours = np.asarray(gaussian_blur5_fixed(jnp.asarray(img)))
+    ref = _blur_fixed_numpy(img)
+    assert np.array_equal(ours, ref.astype(np.float32))
+    assert np.abs(ours - np.asarray(gaussian_blur5(jnp.asarray(img)))).max() < 0.5
+
+
+def test_fixed_blur_rounds_and_clips_input():
+    from cube_slam_wu_tpu.ops.detect import gaussian_blur5_fixed
+
+    img = np.array([[-3.0, 0.4, 254.6, 300.0]] * 5, np.float32)
+    out = np.asarray(gaussian_blur5_fixed(jnp.asarray(img)))
+    ref = np.asarray(gaussian_blur5_fixed(jnp.asarray(np.clip(np.round(img), 0, 255))))
+    assert np.array_equal(out, ref)

@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import scipy.ndimage as ndi
 
 from cube_slam_wu_tpu.ops import image as image_ops
@@ -15,6 +16,19 @@ def test_edt_matches_scipy_exact():
     # scipy: distance to nearest zero; invert mask
     ref = ndi.distance_transform_edt(~edge)
     np.testing.assert_allclose(ours, ref, atol=1e-3)
+
+
+@pytest.mark.parametrize(
+    "shape, density", [((37, 53), 0.05), ((128, 96), 0.002), ((480, 640), 0.01)]
+)
+def test_edt_xla_matches_scipy(shape, density):
+    """The XLA row stage at three shapes, VGA included (the proposal
+    grid's distance maps are 480x640)."""
+    rng = np.random.default_rng(sum(shape))
+    edge = rng.random(shape) < density
+    edge[shape[0] // 2, shape[1] // 3] = True
+    ours = np.asarray(image_ops.distance_transform(jnp.asarray(edge)))
+    np.testing.assert_allclose(ours, ndi.distance_transform_edt(~edge), atol=1e-3)
 
 
 def test_edt_empty_edges_large():
@@ -70,22 +84,6 @@ def test_rgb_to_gray_rounding():
     out = float(image_ops.rgb_to_gray(img)[0, 0])
     expect = np.floor(0.299 * 100 + 0.587 * 150 + 0.114 * 200 + 0.5)
     assert out == expect
-
-
-def test_pallas_edt_matches_reference():
-    """Pallas row-min kernel (interpret mode on CPU) == dense jnp EDT."""
-    import jax
-
-    from cube_slam_wu_tpu.ops.pallas_kernels import edt_row_min
-
-    rng = np.random.default_rng(3)
-    edge = rng.random((50, 70)) < 0.03
-    edge[10, 20] = True
-    ref = np.asarray(image_ops.distance_transform(jnp.asarray(edge), use_pallas=False))
-    g = image_ops._edt_1d_columns(jnp.asarray(edge))
-    g2 = jnp.minimum(g, 1e6) ** 2
-    ours = np.asarray(edt_row_min(g2, interpret=True))
-    np.testing.assert_allclose(ours, ref, atol=1e-3)
 
 
 def test_hysteresis_matches_connected_components_no_wrap():

@@ -109,14 +109,16 @@ def test_sobel_bit_exact_on_reference_blur(oracle):
     assert (gy == oracle["cabinet_dy"]).all()
 
 
-def test_reference_gradients_blur_agreement(oracle):
+def test_reference_gradients_blur_agreement(oracle, reference_root):
     """reference_gradients' float blur matches OpenCV's fixed-point 8U
     Gaussian to +/-1 gray level everywhere (the residual is OpenCV's
     internal fixed-point rounding — position-dependent, documented in the
     reference_gradients docstring)."""
     from PIL import Image
 
-    img = np.asarray(Image.open("/root/reference/line_lbd/data/cabinet.png").convert("L"))
+    img = np.asarray(
+        Image.open(reference_root / "line_lbd/data/cabinet.png").convert("L")
+    )
     gx, gy = lbd.reference_gradients(img)
     # gradients from an off-by-one blur differ by at most 4 counts per tap
     dmax = np.abs(gx - oracle["cabinet_dx"]).max()

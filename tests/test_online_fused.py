@@ -75,6 +75,32 @@ def test_fused_full_online_ate_gate(reference_root):
     assert result.syncs_per_frame == 1.0
 
 
+def test_missing_frame_raises(tmp_path):
+    """A frame image that is not there is an error, not a black frame; a
+    missing detection file still means no detections."""
+    from cube_slam_wu_tpu.utils import synth
+
+    seq = synth.make_sequence(n_frames=2, n_objects=1, size=(48, 64), seed=0)
+    base = synth.write_tum_sequence(seq, tmp_path / "tum")
+    (base / "raw_imgs" / "0000_rgb_raw.pgm").unlink()
+    with pytest.raises(FileNotFoundError, match="frame 0"):
+        run_online_slam_fused(str(base), dtype=jnp.float32)
+
+
+def test_fused_rendered_sequence_contract(tmp_path):
+    """The fused driver on a small rendered PGM sequence: finite poses, one
+    blocking sync per frame, one host time per frame."""
+    from cube_slam_wu_tpu.utils import synth
+
+    seq = synth.make_sequence(n_frames=3, n_objects=1, size=(96, 128), seed=1)
+    base = synth.write_tum_sequence(seq, tmp_path / "tum")
+    out = run_online_slam_fused(str(base), dtype=jnp.float32)
+    assert out.traj_Twc_xyzq.shape == (3, 7)
+    assert np.isfinite(out.traj_Twc_xyzq).all()
+    assert out.syncs_per_frame == 1.0
+    assert out.frame_s.shape == (3,) and (out.frame_s > 0).all()
+
+
 def test_spawn_new_tracks_matches_host_semantics():
     """_spawn_new_tracks vectorizes the host loop `for d in
     nonzero(det_is_new): o = book.spawn()` (first never-used slot per new

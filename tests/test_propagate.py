@@ -1,4 +1,4 @@
-"""Spanning-tree estimate propagation (slam/propagate.py) — the TPU
+"""Spanning-tree estimate propagation (slam/propagate.py) — the batched
 re-design of g2o's estimate_propagator + hyper_dijkstra
 (object_slam/Thirdparty/g2o/g2o/core/estimate_propagator.cpp): batch-mode
 vertex initialisation by composing measurements along min-cost paths from

@@ -151,7 +151,7 @@ def test_demo_fixture_regression(demo_inputs):
 
 
 def test_engine_f32_same_winner(demo_inputs):
-    """The TPU-precision path must select the same hypothesis."""
+    """The f32 (accelerator-precision) path must select the same hypothesis."""
     gray, K, T_wc, bbox, lines, mask = demo_inputs
     cfg = ProposalConfig(max_lines=lines.shape[0])
     f32 = jnp.float32

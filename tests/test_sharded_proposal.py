@@ -2,7 +2,7 @@
 
 Runs on the virtual 8-device CPU mesh (tests/conftest.py) — validates the
 SURVEY.md section 2.9 "shard proposal-scoring tensors across chips" design
-without TPU hardware.
+without several cards.
 """
 
 import jax

@@ -59,7 +59,7 @@ def test_multi_object_online_e2e(tmp_path):
     )
     out, det_dir, poses_path = synth.write_kitti_sequence(seq, tmp_path / "seq")
     specs = [
-        (out / "image_0" / f"{i:06d}.png", det_dir / f"{i:06d}.txt")
+        (out / "image_0" / f"{i:06d}.pgm", det_dir / f"{i:06d}.txt")
         for i in range(12)
     ]
     T0 = jnp.asarray(seq.T_wc[0])
@@ -109,7 +109,7 @@ def test_spawn_range_gate(tmp_path):
     )
     out, det_dir, poses_path = synth.write_kitti_sequence(seq, tmp_path / "seq")
     specs = [
-        (out / "image_0" / f"{i:06d}.png", det_dir / f"{i:06d}.txt")
+        (out / "image_0" / f"{i:06d}.pgm", det_dir / f"{i:06d}.txt")
         for i in range(6)
     ]
     T0 = jnp.asarray(seq.T_wc[0])
@@ -160,7 +160,7 @@ def test_track_max_age_retirement(tmp_path):
     )
     out, det_dir, poses_path = synth.write_kitti_sequence(seq, tmp_path / "seq")
     specs = [
-        (out / "image_0" / f"{i:06d}.png", det_dir / f"{i:06d}.txt")
+        (out / "image_0" / f"{i:06d}.pgm", det_dir / f"{i:06d}.txt")
         for i in range(12)
     ]
     first = SE3.from_rot_trans(jnp.asarray(T[:3, :3]), jnp.asarray(T[:3, 3]))

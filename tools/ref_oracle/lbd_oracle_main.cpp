@@ -2,7 +2,7 @@
 //
 // Builds the reference's line_lbd library (read-only sources under
 // /root/reference/line_lbd) and dumps stage-level golden data so the
-// TPU-native LBD stack (cube_slam_wu_tpu/ops/lbd.py) can be pinned against
+// JAX LBD stack (cube_slam_wu_tpu/ops/lbd.py) can be pinned against
 // the reference's ACTUAL computeLBD / binaryConversion / matcher output
 // (line_lbd/libs/binary_descriptor.cpp:1150-1515, :405-416,
 // binary_descriptor_matcher.cpp), not just re-derived band math.
